@@ -3,7 +3,7 @@
 Pore models are measurement data (per-k-mer current level mean/stdev), not
 code. This script converts TSV pore models (e.g. the ones shipped with the
 reference implementation, or ONT's published tables) into the compact .npz
-layout used by dynamont_tpu.models.registry.
+layout used by dynamont_jax.models.registry.
 
 Usage: python scripts/import_pore_models.py SRC.model DST.npz
        python scripts/import_pore_models.py --all SRC_MODELS_DIR
@@ -16,7 +16,7 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from dynamont_tpu.utils.pore_model import load_pore_model, save_pore_model_npz
+from dynamont_jax.utils.pore_model import load_pore_model, save_pore_model_npz
 
 # canonical relative layout inside a dynamont-style models/ directory
 KNOWN = {
@@ -38,7 +38,7 @@ def convert(src: str, dst: str) -> None:
 
 def main() -> None:
     here = os.path.dirname(os.path.abspath(__file__))
-    outdir = os.path.join(here, "..", "dynamont_tpu", "models_data")
+    outdir = os.path.join(here, "..", "dynamont_jax", "models_data")
     os.makedirs(outdir, exist_ok=True)
     if sys.argv[1] == "--all":
         root = sys.argv[2]

@@ -12,8 +12,8 @@ import subprocess
 import numpy as np
 import pytest
 
-from dynamont_tpu.utils.kmer import int2kmer, seq_to_kmer_ids
-from dynamont_tpu.utils.pore_model import (
+from dynamont_jax.utils.kmer import int2kmer, seq_to_kmer_ids
+from dynamont_jax.utils.pore_model import (
     load_pore_model, reduce_model_to_5mer, write_kmer_models,
 )
 
@@ -76,7 +76,7 @@ def _ref(binary, model_path, pore, sig, read, extra=()):
 
 def test_rna004_9mer_banded_matches_reference(model9_rna):
     """Banded basic mode at K=4^9 (gather-only in K -> no memory blowup)."""
-    from dynamont_tpu.models.nt_banded import run_nt_banded
+    from dynamont_jax.models.nt_banded import run_nt_banded
 
     model, path = model9_rna
     assert model.kmer_size == 9 and model.num_kmers == K9
@@ -91,7 +91,7 @@ def test_rna004_9mer_banded_matches_reference(model9_rna):
 
 
 def test_dna_r10_9mer_full_matches_reference(model9_dna):
-    from dynamont_tpu.models.nt import run_nt
+    from dynamont_jax.models.nt import run_nt
 
     model, path = model9_dna
     sig, read = _make_read9(model, 30, seed=4, rna=False)
@@ -107,7 +107,7 @@ def test_dna_r10_9mer_full_matches_reference(model9_dna):
 def test_rna004_9mer_ntc_small_matches_reference(model9_rna):
     """Per-read NTC runs 9-mers natively (dense TK pass is (T, 4^9) — only
     viable for short reads, exactly like the reference)."""
-    from dynamont_tpu.models.ntc import run_ntc
+    from dynamont_jax.models.ntc import run_ntc
 
     model, path = model9_rna
     sig, read = _make_read9(model, 4, seed=5, rna=True)  # N=13+1, T~100
@@ -133,7 +133,7 @@ def test_rna004_9mer_ntc_small_matches_reference(model9_rna):
 
 def test_reduction_helper_matches_tsv_reduction(model9_rna, tmp_path):
     """In-memory reduce_model_to_5mer == TSV-level 9->5 reduction CLI."""
-    from dynamont_tpu.utils.pore_model import (
+    from dynamont_jax.utils.pore_model import (
         read_kmer_models, reduce_9mer_to_5mer, pore_model_from_dict,
     )
 
@@ -151,7 +151,7 @@ def test_ntc_engine_9mer_reduction_fallback(model9_rna, capsys):
     """NTCBatchEngine auto-reduces 9-mer models (documented fallback)."""
     import jax.numpy as jnp
 
-    from dynamont_tpu.models.ntc_batch import NTCBatchEngine
+    from dynamont_jax.models.ntc_batch import NTCBatchEngine
 
     model, _ = model9_rna
     eng = NTCBatchEngine(model, "rna004", dtype=jnp.float32)
@@ -167,8 +167,8 @@ def test_ntc_engine_native_9mer_matches_reference(model9_rna):
     always runs 9-mer models at native K)."""
     import jax.numpy as jnp
 
-    from dynamont_tpu.models.batch import BatchItem
-    from dynamont_tpu.models.ntc_batch import NTCBatchEngine
+    from dynamont_jax.models.batch import BatchItem
+    from dynamont_jax.models.ntc_batch import NTCBatchEngine
 
     model, path = model9_rna
     sig, read = _make_read9(model, 120, seed=7, rna=True)
@@ -202,8 +202,8 @@ def test_native_9mer_exact_path_refuses_long_reads(model9_rna):
     import jax.numpy as jnp
     import numpy as np
 
-    from dynamont_tpu.models.batch import BatchItem
-    from dynamont_tpu.models.ntc_batch import NTCBatchEngine
+    from dynamont_jax.models.batch import BatchItem
+    from dynamont_jax.models.ntc_batch import NTCBatchEngine
 
     model, _ = model9_rna
     eng = NTCBatchEngine(model, "rna004", dtype=jnp.float32,
@@ -214,38 +214,3 @@ def test_native_9mer_exact_path_refuses_long_reads(model9_rna):
     # guard boundary: reads under ~1k samples at K=4^9 stay eligible for
     # the exact path (the small-N parity tests depend on that)
     assert (1000 + 1) * model.num_kmers * 8 < 2**31
-
-
-@pytest.mark.slow
-def test_ntc_engine_native_9mer_kernel_path_matches_scan(model9_rna):
-    """Native K=4^9 through the MOSAIC lattice kernels (the production
-    TPU path: scan ckpt TK pre-pass + K-generic kernels + XLA table
-    gathers, interpret mode here) vs the scan engine at the same caps:
-    borders/states/polish equal, probabilities to kernel-vs-scan noise."""
-    import jax.numpy as jnp
-
-    from dynamont_tpu.models.batch import BatchItem
-    from dynamont_tpu.models.ntc_batch import NTCBatchEngine
-
-    model, _ = model9_rna
-    items = []
-    for s in range(2):
-        sig, read = _make_read9(model, 45 + 10 * s, seed=20 + s, rna=True)
-        items.append(BatchItem(sig, read))
-    kw = dict(t_pad_to=128, n_pad_to=16, native_kmer=True, fallback=False)
-    eng_p = NTCBatchEngine(model, "rna004", dtype=jnp.float32, pallas=True,
-                           pallas_interpret=True, **kw)
-    eng_s = NTCBatchEngine(model, "rna004", dtype=jnp.float32,
-                           pallas=False, **kw)
-    assert eng_p.model.kmer_size == 9 and eng_p.pallas
-    outs_p = eng_p.run(items)
-    outs_s = eng_s.run(items)
-    for op, os_ in zip(outs_p, outs_s):
-        assert op.error is None, op.error
-        assert os_.error is None, os_.error
-        assert abs(op.Z - os_.Z) < 1e-3 * max(1.0, abs(os_.Z))
-        assert len(op.segments) == len(os_.segments)
-        for gp, gs in zip(op.segments, os_.segments):
-            assert (gp[0], gp[1], gp[2], gp[4]) == \
-                   (gs[0], gs[1], gs[2], gs[4])
-            assert abs(gp[3] - gs[3]) < 1e-5

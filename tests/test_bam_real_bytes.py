@@ -16,7 +16,7 @@ import pytest
 
 pysam = pytest.importorskip("pysam")
 
-from dynamont_tpu.io import readers  # noqa: E402
+from dynamont_jax.io import readers  # noqa: E402
 
 
 def _write_bam(path, records):

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import zstandard as zstd
 
-from dynamont_tpu.models.registry import load_model_for_pore
+from dynamont_jax.models.registry import load_model_for_pore
 from tests.synthetic import make_read
 
 
@@ -86,7 +86,7 @@ def stub_modules(monkeypatch):
     FakeRaw.pa_calls = []
     FakeRaw.signals = {}
     # the worker LRU cache persists across tests — clear it
-    from dynamont_tpu.io import readers
+    from dynamont_jax.io import readers
 
     readers._RAW_CACHE.clear()
     return pysam, read5
@@ -114,7 +114,7 @@ def _make_bam_read(model, seed, name, *, shift, scale, sp=100, pad=50,
 
 
 def test_generate_and_materialize_bam_jobs(stub_modules):
-    from dynamont_tpu.io import readers
+    from dynamont_jax.io import readers
 
     model = load_model_for_pore("rna002")
     # read A: pA path (shift <= 400); read B: DAC path (shift > 400, and
@@ -154,7 +154,7 @@ def test_generate_and_materialize_bam_jobs(stub_modules):
 @pytest.mark.slow
 def test_resquiggle_cli_bam_end_to_end(stub_modules, tmp_path):
     """Full dynamont-resquiggle over the stubbed BAM source (basic mode)."""
-    from dynamont_tpu.cli import resquiggle
+    from dynamont_jax.cli import resquiggle
 
     model = load_model_for_pore("rna002")
     ra, full_a, _ = _make_bam_read(model, 0, "A", shift=10.0, scale=2.0)

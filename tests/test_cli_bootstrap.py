@@ -1,11 +1,10 @@
-"""CLI bootstrap behaviors added in round 5.
+"""CLI bootstrap behaviors.
 
-- enable_compile_cache: every CLI process must enable the persistent XLA
-  compile cache (the env var alone does not activate it on this jax
-  version; a cold dynamont-resquiggle start paid the full ~20-30 s
-  bucket-program compile before its first read).
-- engine batch-size defaults: basic mode 32 (fewer launch/collect
-  round-trips), resquiggle 16 (the NTC Mosaic kernel geometry).
+- enable_compile_cache: every CLI process enables the one persistent XLA
+  compile cache (JAX_COMPILATION_CACHE_DIR, else .jax_cache/ in the
+  checkout).
+- engine batch-size defaults: basic mode 256 (one GPU program per read:
+  a 256-read bucket fills the H100's SMs, PERF.md), resquiggle 16.
 """
 
 import os
@@ -13,8 +12,8 @@ import os
 import jax
 import pytest
 
-from dynamont_tpu.cli import _protocol
-from dynamont_tpu.cli import resquiggle as cli_resq
+from dynamont_jax import compile_cache
+from dynamont_jax.cli import resquiggle as cli_resq
 
 
 def test_enable_compile_cache_sets_config(tmp_path, monkeypatch):
@@ -22,7 +21,7 @@ def test_enable_compile_cache_sets_config(tmp_path, monkeypatch):
     monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "cc"))
     old = jax.config.jax_compilation_cache_dir
     try:
-        _protocol.enable_compile_cache()
+        compile_cache.enable_compile_cache()
         assert jax.config.jax_compilation_cache_dir == str(tmp_path / "cc")
         assert os.path.isdir(str(tmp_path / "cc"))
     finally:
@@ -34,7 +33,7 @@ def test_enable_compile_cache_opt_out(monkeypatch):
     monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/nonexistent/nope")
     old = jax.config.jax_compilation_cache_dir
     try:
-        _protocol.enable_compile_cache()
+        compile_cache.enable_compile_cache()
         assert jax.config.jax_compilation_cache_dir == old
     finally:
         jax.config.update("jax_compilation_cache_dir", old)
@@ -46,8 +45,10 @@ def test_enable_compile_cache_default_dir(monkeypatch, tmp_path):
     monkeypatch.setenv("HOME", str(tmp_path))
     old = jax.config.jax_compilation_cache_dir
     try:
-        _protocol.enable_compile_cache()
-        want = os.path.join(str(tmp_path), ".cache", "dynamont_tpu", "jax")
+        compile_cache.enable_compile_cache()
+        # a fixed path at the checkout root, never under HOME
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        want = os.path.join(root, ".jax_cache")
         assert jax.config.jax_compilation_cache_dir == want
         assert os.path.isdir(want)
     finally:
@@ -55,7 +56,7 @@ def test_enable_compile_cache_default_dir(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("mode,flag,expect", [
-    ("basic", None, 32),
+    ("basic", None, 256),
     ("basic", 8, 8),
     ("resquiggle", None, 16),
     ("resquiggle", 48, 48),
@@ -70,8 +71,8 @@ def test_engine_batch_size_defaults(monkeypatch, tmp_path, mode, flag,
         def __init__(self, *a, **kw):
             seen.update(kw)
 
-    import dynamont_tpu.models.batch as mb
-    import dynamont_tpu.models.ntc_batch as mnb
+    import dynamont_jax.models.batch as mb
+    import dynamont_jax.models.ntc_batch as mnb
 
     monkeypatch.setattr(mb, "BandedBatchEngine", FakeEngine)
     monkeypatch.setattr(mnb, "NTCBatchEngine", FakeEngine)

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import zstandard as zstd
 
-from dynamont_tpu.models.registry import load_model_for_pore
+from dynamont_jax.models.registry import load_model_for_pore
 
 from tests.synthetic import make_read
 
@@ -35,8 +35,8 @@ def _read_zst_csv(path):
 
 
 def test_engine_crash_isolated_with_repro_dump(model, tmp_path, monkeypatch):
-    from dynamont_tpu.cli import resquiggle
-    from dynamont_tpu.models.batch import BandedBatchEngine
+    from dynamont_jax.cli import resquiggle
+    from dynamont_jax.models.batch import BandedBatchEngine
 
     items = []
     for s in range(3):

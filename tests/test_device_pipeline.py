@@ -4,11 +4,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dynamont_tpu.models.batch import BandedBatchEngine, BatchItem
-from dynamont_tpu.models.nt_banded import run_nt_banded
-from dynamont_tpu.models.registry import load_model_for_pore
-from dynamont_tpu.ops import nt_banded_device as dv
-from dynamont_tpu.utils.signal import hampel_filter
+from dynamont_jax.models.batch import BandedBatchEngine, BatchItem
+from dynamont_jax.models.nt_banded import run_nt_banded
+from dynamont_jax.models.registry import load_model_for_pore
+from dynamont_jax.ops import nt_banded_device as dv
+from dynamont_jax.utils.signal import hampel_filter
 
 from tests.synthetic import make_read
 
@@ -84,7 +84,7 @@ def test_fp32_z_gate_escalates_to_fp64(model, monkeypatch):
     on the exact per-read fp64 path (mirroring the NTC ladder) and yields
     the fp64 segments. fp64 gate failures stay terminal (reference
     exit-3 contract, NT_banded_main.cpp:156-183)."""
-    from dynamont_tpu.ops import nt_banded_batch as bb
+    from dynamont_jax.ops import nt_banded_batch as bb
 
     items = _quantized_items(model, n_reads=2, base_len=50)
     eng = BandedBatchEngine(model, "rna002", dtype=jnp.float32)
@@ -105,7 +105,7 @@ def test_fp32_z_gate_escalates_to_fp64(model, monkeypatch):
 
 
 def test_fp32_z_gate_terminal_without_fallback(model, monkeypatch):
-    from dynamont_tpu.ops import nt_banded_batch as bb
+    from dynamont_jax.ops import nt_banded_batch as bb
 
     items = _quantized_items(model, n_reads=1, base_len=50)
     eng = BandedBatchEngine(

@@ -10,15 +10,17 @@ import numpy as np
 import pytest
 import zstandard as zstd
 
-from dynamont_tpu.models.registry import load_model_for_pore
+from dynamont_jax.models.registry import load_model_for_pore
 from tests.synthetic import make_read
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 DRIVER = r"""
 import sys
 import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
-from dynamont_tpu.cli import resquiggle
+from dynamont_jax.cli import resquiggle
 resquiggle.main(sys.argv[1:])
 """
 
@@ -35,7 +37,7 @@ def test_init_distributed_required_fails_loudly(monkeypatch):
     native code, so the failure is injected at the jax.distributed API)."""
     import jax
 
-    from dynamont_tpu.parallel.mesh import init_distributed
+    from dynamont_jax.parallel.mesh import init_distributed
 
     calls = {}
 
@@ -52,6 +54,30 @@ def test_init_distributed_required_fails_loudly(monkeypatch):
     assert calls["args"] == ("127.0.0.1:1", 2, 0)  # env vars were picked up
     # without required: degrade silently (reference-free environments)
     init_distributed(required=False)
+
+
+@pytest.mark.parametrize("env,want", [(None, {}),
+                                      ("2", {"local_device_ids": [2]})])
+def test_init_distributed_one_card_per_process(monkeypatch, env, want):
+    """Processes sharing a multi-card host each open only their own card
+    (DYNAMONT_LOCAL_DEVICE); without it every process sees all cards."""
+    import jax
+
+    from dynamont_jax.parallel.mesh import init_distributed
+
+    seen = {}
+    monkeypatch.setattr(jax.distributed, "initialize",
+                        lambda *a, **kw: seen.update(args=a, kw=kw))
+    monkeypatch.setenv("DYNAMONT_COORDINATOR", "localhost:1234")
+    monkeypatch.setenv("DYNAMONT_NUM_PROCESSES", "4")
+    monkeypatch.setenv("DYNAMONT_PROCESS_ID", "2")
+    if env is None:
+        monkeypatch.delenv("DYNAMONT_LOCAL_DEVICE", raising=False)
+    else:
+        monkeypatch.setenv("DYNAMONT_LOCAL_DEVICE", env)
+    init_distributed(required=True)
+    assert seen["args"] == ("localhost:1234", 4, 2)
+    assert seen["kw"] == want
 
 
 @pytest.mark.slow
@@ -76,13 +102,11 @@ def test_two_process_resquiggle_partitions_reads(tmp_path):
             DYNAMONT_COORDINATOR=f"127.0.0.1:{port}",
             DYNAMONT_NUM_PROCESSES="2",
             DYNAMONT_PROCESS_ID=str(pid),
-            JAX_COMPILATION_CACHE_DIR=os.environ.get(
-                "JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache_tests"),
         )
         procs.append(subprocess.Popen(
             [sys.executable, "-c", DRIVER, "--tsv", str(tsv), "-o", str(out),
              "--mode", "basic", "-p", "rna002", "--distributed"],
-            env=env, cwd="/root/repo",
+            env=env, cwd=ROOT,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         ))
     outs = [p.communicate(timeout=420) for p in procs]

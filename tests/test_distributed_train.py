@@ -1,4 +1,4 @@
-"""Two-process distributed TRAINING (VERDICT r4 item 5; BASELINE config 5).
+"""Two-process distributed TRAINING.
 
 dynamont-train --distributed: every process reads the same job stream,
 trains the round-robin shard of each batch, merges per-read estimates
@@ -16,15 +16,17 @@ import sys
 
 import pytest
 
-from dynamont_tpu.models.registry import load_model_for_pore
+from dynamont_jax.models.registry import load_model_for_pore
 from tests.synthetic import make_read
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 DRIVER = r"""
 import sys
 import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
-from dynamont_tpu.cli import train
+from dynamont_jax.cli import train
 train.main(sys.argv[1:])
 """
 
@@ -70,9 +72,8 @@ def test_two_process_training_matches_single_process(tmp_path):
     out1 = tmp_path / "single"
     r = subprocess.run(
         [sys.executable, "-c", DRIVER] + _train_args(tsv, out1),
-        cwd="/root/repo", capture_output=True, timeout=420,
-        env=dict(os.environ, JAX_COMPILATION_CACHE_DIR=os.environ.get(
-            "JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache_tests")),
+        cwd=ROOT, capture_output=True, timeout=420,
+        env=dict(os.environ),
     )
     assert r.returncode == 0, r.stderr.decode()[-2000:]
 
@@ -86,13 +87,11 @@ def test_two_process_training_matches_single_process(tmp_path):
             DYNAMONT_COORDINATOR=f"127.0.0.1:{port}",
             DYNAMONT_NUM_PROCESSES="2",
             DYNAMONT_PROCESS_ID=str(pid),
-            JAX_COMPILATION_CACHE_DIR=os.environ.get(
-                "JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache_tests"),
         )
         procs.append(subprocess.Popen(
             [sys.executable, "-c", DRIVER]
             + _train_args(tsv, out2) + ["--distributed"],
-            env=env, cwd="/root/repo",
+            env=env, cwd=ROOT,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         ))
     outs = [p.communicate(timeout=420) for p in procs]

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from dynamont_tpu.models.nt_banded import run_nt_banded
-from dynamont_tpu.utils.pore_model import pore_model_from_dict
-from dynamont_tpu.utils.kmer import int2kmer, seq_to_kmer_ids
+from dynamont_jax.models.nt_banded import run_nt_banded
+from dynamont_jax.utils.pore_model import pore_model_from_dict
+from dynamont_jax.utils.kmer import int2kmer, seq_to_kmer_ids
 
 from tests.synthetic import signal_to_text
 
@@ -21,7 +21,7 @@ def dna_model(tmp_path_factory):
         kmer = int2kmer(k, 4, 5, rna=False)
         models[kmer] = (float(rng.normal(0, 1)), 0.2)
     path = tmp_path_factory.mktemp("dna") / "dna5.model"
-    from dynamont_tpu.utils.pore_model import write_kmer_models
+    from dynamont_jax.utils.pore_model import write_kmer_models
 
     write_kmer_models(path, models)
     return pore_model_from_dict(models, rna=False), str(path)

@@ -5,11 +5,11 @@ import json
 import numpy as np
 import pytest
 
-from dynamont_tpu.eval.compare_tools import (
+from dynamont_jax.eval.compare_tools import (
     borders_from_segments, evaluate, generate_control, segment_lengths,
 )
-from dynamont_tpu.eval.edge_detection import wavelet_peaks, window_edges
-from dynamont_tpu.eval.evaluate_reads import (
+from dynamont_jax.eval.edge_detection import wavelet_peaks, window_edges
+from dynamont_jax.eval.evaluate_reads import (
     compute_n50, compute_stats, global_alignment, report,
 )
 
@@ -107,7 +107,7 @@ def test_window_edges_finds_step():
 
 
 def test_collect_metrics_roundtrip(tmp_path):
-    from dynamont_tpu.eval import collect_metrics
+    from dynamont_jax.eval import collect_metrics
 
     j = tmp_path / "tool.json"
     j.write_text(json.dumps({"present": 5, "N50": 1000, "lengths": [1, 2]}))
@@ -125,9 +125,9 @@ def test_collect_metrics_roundtrip(tmp_path):
 
 
 def test_plot_segmentation_smoke(tmp_path):
-    from dynamont_tpu.io.output import format_segments
-    from dynamont_tpu.models.registry import load_model_for_pore
-    from dynamont_tpu.plot.segmentation import plot_borders
+    from dynamont_jax.io.output import format_segments
+    from dynamont_jax.models.registry import load_model_for_pore
+    from dynamont_jax.plot.segmentation import plot_borders
     from tests.synthetic import make_read
 
     model = load_model_for_pore("rna002")
@@ -141,7 +141,7 @@ def test_plot_segmentation_smoke(tmp_path):
 
 
 def test_plot_params_smoke(tmp_path):
-    from dynamont_tpu.plot.trained_params import plot_parameters
+    from dynamont_jax.plot.trained_params import plot_parameters
 
     csv = tmp_path / "params.csv"
     csv.write_text(
@@ -153,7 +153,7 @@ def test_plot_params_smoke(tmp_path):
 
 
 def test_plot_tool_segments_cli(tmp_path):
-    from dynamont_tpu.plot.tool_segments import main as pts_main
+    from dynamont_jax.plot.tool_segments import main as pts_main
 
     sig = ",".join(f"{v:.3f}" for v in 80 + 10 * np.sin(np.arange(200) / 7))
     tsv = tmp_path / "reads.tsv"
@@ -181,7 +181,7 @@ def test_plot_tool_segments_cli(tmp_path):
 
 
 def test_seg_to_fasta(tmp_path):
-    from dynamont_tpu.eval.converters import seg_to_fasta
+    from dynamont_jax.eval.converters import seg_to_fasta
 
     seg = tmp_path / "seg.csv"
     seg.write_text(
@@ -200,7 +200,7 @@ def test_seg_to_fasta(tmp_path):
 
 
 def test_seg_to_fasta_flavors(tmp_path):
-    from dynamont_tpu.eval.converters import seg_to_fasta
+    from dynamont_jax.eval.converters import seg_to_fasta
 
     # f5c resquiggle: kmer_idx indexes into the basecalled read
     f5cr = tmp_path / "f5c_resquiggle.tsv"
@@ -240,7 +240,7 @@ def test_seg_to_fasta_flavors(tmp_path):
 
 
 def test_downstream_eval(tmp_path):
-    from dynamont_tpu.eval import downstream
+    from dynamont_jax.eval import downstream
 
     flye = tmp_path / "assembly_info.txt"
     flye.write_text(
@@ -260,7 +260,7 @@ def test_downstream_eval(tmp_path):
     assert lines[1] == "N50: 4000"
     assert lines[3] == "Number of structural variants: 2"
     # round-trips into the metric aggregator's downstream parser
-    from dynamont_tpu.eval.collect_metrics import add_downstream_metrics
+    from dynamont_jax.eval.collect_metrics import add_downstream_metrics
     rows = []
     add_downstream_metrics(rows, "dynamont", str(out))
     assert ("dynamont", 4000, "flye n50") in rows
@@ -291,8 +291,8 @@ def _write_tombo_fast5(path, readid, starts, lengths, bases, signal_len):
 def test_tombo_reader_and_fasta(tmp_path):
     """read_tombo_borders mirrors RNA event borders into sequencing time
     (ref: compareTools.py:215-243); tombo_to_fasta rebuilds the sequence."""
-    from dynamont_tpu.eval.converters import tombo_to_fasta
-    from dynamont_tpu.plot.readers import read_tombo_borders
+    from dynamont_jax.eval.converters import tombo_to_fasta
+    from dynamont_jax.plot.readers import read_tombo_borders
 
     d = tmp_path / "f5"
     d.mkdir()
@@ -317,7 +317,7 @@ def test_tombo_reader_and_fasta(tmp_path):
 def test_compare_tools_main_with_tombo_dorado_controls(tmp_path):
     import h5py
 
-    from dynamont_tpu.eval.compare_tools import main
+    from dynamont_jax.eval.compare_tools import main
 
     with h5py.File(tmp_path / "gt.h5", "w") as h5:
         h5.create_dataset("readX", data=np.array([20, 50, 80]))
@@ -353,7 +353,7 @@ def test_compare_tools_main_with_tombo_dorado_controls(tmp_path):
 
 
 def test_paper_figures(tmp_path):
-    from dynamont_tpu.eval.paper_figures import (
+    from dynamont_jax.eval.paper_figures import (
         aggregated_scores, load_metrics, main,
     )
 
@@ -395,7 +395,7 @@ def test_paper_figures(tmp_path):
 
 
 def test_collect_metrics_scores_option(tmp_path):
-    from dynamont_tpu.eval import collect_metrics
+    from dynamont_jax.eval import collect_metrics
 
     score_csv = tmp_path / "scores.csv"
     score_csv.write_text(

@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from dynamont_tpu.utils.kmer import (
+from dynamont_jax.utils.kmer import (
     kmer2int,
     int2kmer,
     seq_to_kmer_ids,
@@ -82,7 +82,7 @@ def test_invalid_characters_raise():
 def test_int2kmers_batch_matches_scalar():
     import numpy as np
 
-    from dynamont_tpu.utils.kmer import int2kmer, int2kmers_batch
+    from dynamont_jax.utils.kmer import int2kmer, int2kmers_batch
 
     rng = np.random.default_rng(3)
     for A, S in ((4, 5), (4, 9)):

@@ -8,9 +8,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dynamont_tpu.models.batch import BandedBatchEngine, BatchItem
-from dynamont_tpu.models.ntc_batch import NTCBatchEngine
-from dynamont_tpu.models.registry import load_model_for_pore
+from dynamont_jax.models.batch import BandedBatchEngine, BatchItem
+from dynamont_jax.models.ntc_batch import NTCBatchEngine
+from dynamont_jax.models.registry import load_model_for_pore
 
 from tests.synthetic import make_read
 
@@ -66,24 +66,23 @@ def test_ntc_round_robin_matches_single_device(model):
     devs = jax.local_devices()
     items = _items(model, 6, base_len=25)
     eng = NTCBatchEngine(model, "rna002", dtype=jnp.float32, batch_size=2,
-                         fallback=False, pallas=False)
+                         fallback=False)
     outs = eng.run(items)
     used = eng.profile["device_buckets"]
     assert len(used) >= 3  # 3 buckets -> 3 distinct devices
     single = NTCBatchEngine(model, "rna002", dtype=jnp.float32, batch_size=2,
-                            fallback=False, pallas=False, devices=[devs[0]])
+                            fallback=False, devices=[devs[0]])
     souts = single.run(items)
     for got, want in zip(outs, souts):
         assert _out_key(got) == _out_key(want)
 
 
 def test_ntc_train_round_robin_matches_single_device(model):
-    # the scan train path routes through _train_exact off-TPU; exercise the
-    # dispatch bookkeeping via the batched segmentation engine instead and
-    # the train device plumbing in interpret mode only when cheap. Here:
-    # verify the round-robin counter advances across run() calls.
+    # NTC training runs the exact per-read path; exercise the dispatch
+    # bookkeeping via the batched segmentation engine instead: the
+    # round-robin counter advances across run() calls.
     eng = NTCBatchEngine(model, "rna002", dtype=jnp.float32, batch_size=2,
-                         fallback=False, pallas=False)
+                         fallback=False)
     eng.run(_items(model, 2, base_len=25))
     first = dict(eng.profile["device_buckets"])
     eng.run(_items(model, 2, base_len=25))

@@ -1,13 +1,13 @@
 import numpy as np
 import pytest
 
-from dynamont_tpu.models.registry import load_model_for_pore
-from dynamont_tpu.models.nt import run_nt
-from dynamont_tpu.models.nt_banded import run_nt_banded
-from dynamont_tpu.ops.geometry import band_geometry, effective_bandwidth
-from dynamont_tpu.utils.output import segments_to_string
-from ref_oracle import run_reference
-from synthetic import make_read, signal_to_text
+from dynamont_jax.models.registry import load_model_for_pore
+from dynamont_jax.models.nt import run_nt
+from dynamont_jax.models.nt_banded import run_nt_banded
+from dynamont_jax.ops.geometry import band_geometry, effective_bandwidth
+from dynamont_jax.utils.output import segments_to_string
+from tests.ref_oracle import run_reference
+from tests.synthetic import make_read, signal_to_text
 
 MODEL = load_model_for_pore("rna002")
 

@@ -4,11 +4,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dynamont_tpu.models.batch import BandedBatchEngine, BatchItem
-from dynamont_tpu.models.nt_banded import run_nt_banded
-from dynamont_tpu.models.registry import load_model_for_pore
-from dynamont_tpu.ops import nt_banded_batch as bb
-from dynamont_tpu.utils.kmer import seq_to_kmer_ids
+from dynamont_jax.models.batch import BandedBatchEngine, BatchItem
+from dynamont_jax.models.nt_banded import run_nt_banded
+from dynamont_jax.models.registry import load_model_for_pore
+from dynamont_jax.ops import nt_banded_batch as bb
+from dynamont_jax.utils.kmer import seq_to_kmer_ids
 
 from tests.synthetic import make_read
 
@@ -94,7 +94,7 @@ def test_validation_errors_are_reported(model):
 
 
 def test_native_traceback_matches_python(model):
-    from dynamont_tpu import native
+    from dynamont_jax import native
 
     if native.get_lib() is None:
         pytest.skip("native library unavailable")

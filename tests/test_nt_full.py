@@ -3,14 +3,14 @@ import math
 import numpy as np
 import pytest
 
-from dynamont_tpu.models.registry import load_model_for_pore
-from dynamont_tpu.models.nt import run_nt, ZConsistencyError
-from dynamont_tpu.ops import nt_full
-from dynamont_tpu.utils.kmer import seq_to_kmer_ids
-from dynamont_tpu.utils.output import segments_to_string
-from ref_oracle import run_reference, REF_MODEL_RNA002
+from dynamont_jax.models.registry import load_model_for_pore
+from dynamont_jax.models.nt import run_nt, ZConsistencyError
+from dynamont_jax.ops import nt_full
+from dynamont_jax.utils.kmer import seq_to_kmer_ids
+from dynamont_jax.utils.output import segments_to_string
+from tests.ref_oracle import run_reference, REF_MODEL_RNA002
 
-from synthetic import make_read, signal_to_text
+from tests.synthetic import make_read, signal_to_text
 
 MODEL = load_model_for_pore("rna002")
 
@@ -19,7 +19,7 @@ def _mats(seed=1, n_bases=30):
     sig, read = make_read(MODEL, n_bases=n_bases, seed=seed)
     kmer_ids = seq_to_kmer_ids(read, MODEL.kmer_size, MODEL.alphabet_size)
     scores = nt_full.emission_scores(sig, kmer_ids, MODEL.means, MODEL.stdevs)
-    from dynamont_tpu.constants import NT_TRANSITIONS
+    from dynamont_jax.constants import NT_TRANSITIONS
 
     t = NT_TRANSITIONS["rna002"]
     return sig, read, scores, nt_full.nt_forward_backward(scores, t["m1"], t["e2"])
@@ -104,13 +104,13 @@ def test_cli_protocol(tmp_path, capsys, monkeypatch):
     import io
     import sys
 
-    from dynamont_tpu.cli import nt_main
+    from dynamont_jax.cli import nt_main
 
     sig, read = make_read(MODEL, n_bases=30, seed=21)
     stdin = io.StringIO(signal_to_text(sig) + "\n" + read + "\n")
     monkeypatch.setattr(sys, "stdin", stdin)
-    monkeypatch.setenv("DYNAMONT_TPU_FORCE_CPU", "1")
-    from dynamont_tpu.models.registry import get_model_path
+    monkeypatch.setenv("DYNAMONT_FORCE_CPU", "1")
+    from dynamont_jax.models.registry import get_model_path
 
     nt_main.main(["-m", get_model_path("rna002"), "-r", "rna002"])
     out = capsys.readouterr().out.strip()
@@ -122,8 +122,8 @@ def test_cli_missing_signal(monkeypatch, capsys):
     import io
     import sys
 
-    from dynamont_tpu.cli import nt_main
-    from dynamont_tpu.models.registry import get_model_path
+    from dynamont_jax.cli import nt_main
+    from dynamont_jax.models.registry import get_model_path
 
     monkeypatch.setattr(sys, "stdin", io.StringIO("\n\n"))
     with pytest.raises(SystemExit) as e:
@@ -132,7 +132,7 @@ def test_cli_missing_signal(monkeypatch, capsys):
 
 
 def test_cli_bad_model_path():
-    from dynamont_tpu.cli import nt_main
+    from dynamont_jax.cli import nt_main
 
     with pytest.raises(SystemExit) as e:
         nt_main.main(["-m", "/nonexistent.model", "-r", "rna002"])

@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dynamont_tpu.models.ntc import run_ntc
-from dynamont_tpu.models.registry import load_model_for_pore
-from dynamont_tpu.ops import ntc_pre
+from dynamont_jax.models.ntc import run_ntc
+from dynamont_jax.models.registry import load_model_for_pore
+from dynamont_jax.ops import ntc_pre
 
 from tests.ref_oracle import run_reference
 from tests.synthetic import make_read, signal_to_text
@@ -36,8 +36,8 @@ def test_tk_prepass_z_consistency(model):
 
 
 def test_tn_prepass_z_consistency(model):
-    from dynamont_tpu.ops import nt_full
-    from dynamont_tpu.utils.kmer import seq_to_kmer_ids
+    from dynamont_jax.ops import nt_full
+    from dynamont_jax.utils.kmer import seq_to_kmer_ids
 
     sig, read = make_read(model, n_bases=30, seed=2)
     kid = seq_to_kmer_ids(read, model.kmer_size, model.alphabet_size)

@@ -10,10 +10,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dynamont_tpu.models.batch import BatchItem
-from dynamont_tpu.models.ntc import run_ntc
-from dynamont_tpu.models.ntc_batch import NTCBatchEngine
-from dynamont_tpu.models.registry import load_model_for_pore
+from dynamont_jax.models.batch import BatchItem
+from dynamont_jax.models.ntc import run_ntc
+from dynamont_jax.models.ntc_batch import NTCBatchEngine
+from dynamont_jax.models.registry import load_model_for_pore
 
 from tests.synthetic import make_read
 
@@ -49,7 +49,7 @@ def test_topk_maxmask_matches_lax_topk():
     contract (ties, exhausted columns, dead columns)."""
     import jax
 
-    from dynamont_tpu.ops.ntc_batch import _topk_maxmask, select_topk
+    from dynamont_jax.ops.ntc_batch import _topk_maxmask, select_topk
 
     rng = np.random.default_rng(0)
     U = rng.normal(size=(64, 256))
@@ -64,7 +64,7 @@ def test_topk_maxmask_matches_lax_topk():
     # full select_topk contract vs a top_k-forced oracle of the same math
     import math
 
-    from dynamont_tpu.ops.ntc_pre import SPARSE_THRESHOLD
+    from dynamont_jax.ops.ntc_pre import SPARSE_THRESHOLD
 
     live = jnp.ones((64,), bool)
     c1, n1, o1 = select_topk(U, 8, True, live, 256)
@@ -170,8 +170,8 @@ def test_ckpt_tk_pre_pass_bit_equals_dense():
     the recomputed backward columns follow the identical op order."""
     import math
 
-    from dynamont_tpu.constants import NT_TRANSITIONS
-    from dynamont_tpu.ops import ntc_batch as nb
+    from dynamont_jax.constants import NT_TRANSITIONS
+    from dynamont_jax.ops import ntc_batch as nb
 
     model = load_model_for_pore("rna002")
     nt = NT_TRANSITIONS["rna002"]
@@ -200,9 +200,9 @@ def test_bigk_plan_equals_full_plan():
     field-for-field at 5-mer shapes."""
     import math
 
-    from dynamont_tpu.constants import NT_TRANSITIONS
-    from dynamont_tpu.ops import ntc_batch as nb
-    from dynamont_tpu.utils.kmer import seq_to_kmer_ids
+    from dynamont_jax.constants import NT_TRANSITIONS
+    from dynamont_jax.ops import ntc_batch as nb
+    from dynamont_jax.utils.kmer import seq_to_kmer_ids
 
     model = load_model_for_pore("rna002")
     nt = NT_TRANSITIONS["rna002"]
@@ -249,8 +249,8 @@ def test_select_topk_bigk_block_merge_matches_oracle():
 
     import jax
 
-    from dynamont_tpu.ops.ntc_batch import select_topk
-    from dynamont_tpu.ops.ntc_pre import SPARSE_THRESHOLD
+    from dynamont_jax.ops.ntc_batch import select_topk
+    from dynamont_jax.ops.ntc_pre import SPARSE_THRESHOLD
 
     rng = np.random.default_rng(1)
     W = 65536

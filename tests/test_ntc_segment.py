@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from dynamont_tpu.models.ntc import run_ntc
-from dynamont_tpu.models.registry import load_model_for_pore
+from dynamont_jax.models.ntc import run_ntc
+from dynamont_jax.models.registry import load_model_for_pore
 
 from tests.ref_oracle import run_reference
 from tests.synthetic import make_read, signal_to_text
@@ -57,8 +57,8 @@ def test_ntc_segments_match_reference(model, seed):
 
 def test_native_ntc_walker_matches_python(model):
     """The C++ slot walker must reproduce the Python walk exactly."""
-    import dynamont_tpu.native as native
-    from dynamont_tpu.models import ntc as ntc_mod
+    import dynamont_jax.native as native
+    from dynamont_jax.models import ntc as ntc_mod
 
     if native.get_lib() is None:
         pytest.skip("native library unavailable")
@@ -82,8 +82,8 @@ def test_ntc_production_length_matches_reference(model):
     (ref: NTC_main.cpp:151-175 at production T)."""
     import jax.numpy as jnp
 
-    from dynamont_tpu.models.batch import BatchItem
-    from dynamont_tpu.models.ntc_batch import NTCBatchEngine
+    from dynamont_jax.models.batch import BatchItem
+    from dynamont_jax.models.ntc_batch import NTCBatchEngine
 
     sig, read = make_read(model, n_bases=1350, mean_dwell=12.0, seed=3)
     sig = sig[:16000]

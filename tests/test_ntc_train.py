@@ -2,8 +2,8 @@
 
 import pytest
 
-from dynamont_tpu.models.ntc import run_ntc
-from dynamont_tpu.models.registry import load_model_for_pore
+from dynamont_jax.models.ntc import run_ntc
+from dynamont_jax.models.registry import load_model_for_pore
 
 from tests.ref_oracle import run_reference
 from tests.synthetic import make_read, signal_to_text

@@ -1,6 +1,6 @@
 import numpy as np
 
-from dynamont_tpu.utils.output import (
+from dynamont_jax.utils.output import (
     format_segmentation,
     format_segmentation_output,
     parse_segment_string,
@@ -59,7 +59,7 @@ def test_format_segmentation_bytes():
 def test_fused_csv_matches_two_step():
     import numpy as np
 
-    from dynamont_tpu.io.output import (
+    from dynamont_jax.io.output import (
         format_segments, format_segments_csv, rows_to_csv_bytes,
     )
 
@@ -87,7 +87,7 @@ def test_fused_csv_matches_two_step():
 def test_summaries_to_segments_vectorized():
     import numpy as np
 
-    from dynamont_tpu.ops.nt_banded_device import summaries_to_segments
+    from dynamont_jax.ops.nt_banded_device import summaries_to_segments
 
     starts = np.array([3, -1, 5, 9, -1, 12, 44], np.int32)
     med = np.array([0.0, 0.1, 0.25, 0.5, 0.9, 1.0, 0.75], np.float32)
@@ -106,9 +106,9 @@ def test_native_summaries_csv_matches_python():
     import numpy as np
     import pytest
 
-    from dynamont_tpu.io.output import format_segments_csv
-    from dynamont_tpu.native import summaries_csv_native
-    from dynamont_tpu.ops.nt_banded_device import summaries_to_segments
+    from dynamont_jax.io.output import format_segments_csv
+    from dynamont_jax.native import summaries_csv_native
+    from dynamont_jax.ops.nt_banded_device import summaries_to_segments
 
     if summaries_csv_native("x,y,", np.zeros(4, np.int32),
                             np.zeros(4, np.float32), 2, "ACGTA", 5, False,
@@ -137,3 +137,36 @@ def test_native_summaries_csv_matches_python():
         got = summaries_csv_native("rid,sid,", starts, med, N, read, 5,
                                    rna, off, last)
         assert got == want, f"trial {trial}"
+
+
+def test_plain_csv_writer_and_resume_without_zstandard(tmp_path, monkeypatch):
+    """A non-.zst outfile is plain CSV text and never imports zstandard;
+    --resume repairs a plain file cut mid-row."""
+    import builtins
+    import sys
+
+    from dynamont_jax.io import output as out_io
+
+    real_import = builtins.__import__
+
+    def no_zstd(name, *a, **kw):
+        if name == "zstandard":
+            raise ImportError("zstandard unavailable")
+        return real_import(name, *a, **kw)
+
+    monkeypatch.delitem(sys.modules, "zstandard", raising=False)
+    monkeypatch.setattr(builtins, "__import__", no_zstd)
+    out = tmp_path / "run.csv"
+    w = out_io.SegmentationWriter(str(out))
+    w.put_result(b"r1,s1,0,5,0,A,AAAAA,M,0.9,\n")
+    w.put_result(b"r2,s2,0,4,0,C,CCCCC,M,0.8,\n")
+    w.put_error("error: 3, boom\tRid: r3")
+    w.close()
+    assert out.read_bytes().startswith(out_io.CSV_HEADER)
+    assert (tmp_path / "run.errors").read_text().count("\n") == 1
+    assert out_io.prepare_resume(str(out)) == {"r1", "r2"}
+    with open(out, "ab") as f:
+        f.write(b"r3,s3,0,2,0,G,GG")          # hard kill mid-row
+    # the trailing read is re-segmented: its rows may be incomplete
+    assert out_io.prepare_resume(str(out)) == {"r1"}
+    assert out.read_bytes().endswith(b"r1,s1,0,5,0,A,AAAAA,M,0.9,\n")

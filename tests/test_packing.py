@@ -6,9 +6,8 @@ ladder, and (d) beat the old count-only grouping on a ragged mix."""
 import numpy as np
 import pytest
 
-from dynamont_tpu.models.packing import (
+from dynamont_jax.models.packing import (
     pack_buckets,
-    pad_reads_to,
     round_up,
     t_pad_ladder,
 )
@@ -84,13 +83,6 @@ def test_group_quantum_prefers_multiples():
     # so the packer must not split below the launch-overhead tie-break
     buckets = pack_buckets([16000] * 9, 16, 2**22, 2048, group=8)
     assert len(buckets) == 1
-
-
-def test_pad_reads_to():
-    assert pad_reads_to(5, 8) == 8
-    assert pad_reads_to(8, 8) == 8
-    assert pad_reads_to(9, 8) == 16
-    assert pad_reads_to(3, 1) == 3
 
 
 def test_empty():

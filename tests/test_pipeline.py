@@ -7,9 +7,9 @@ import numpy as np
 import pytest
 import zstandard as zstd
 
-from dynamont_tpu.io.output import format_segments, rows_to_csv_bytes
-from dynamont_tpu.models.registry import load_model_for_pore, get_model_path
-from dynamont_tpu.utils.signal import hampel_filter, prepare_read_sequence
+from dynamont_jax.io.output import format_segments, rows_to_csv_bytes
+from dynamont_jax.models.registry import load_model_for_pore, get_model_path
+from dynamont_jax.utils.signal import hampel_filter, prepare_read_sequence
 
 from tests.ref_oracle import run_reference
 from tests.synthetic import make_read, signal_to_text
@@ -56,7 +56,7 @@ def test_format_segments_semantics():
 def test_resquiggle_cli_tsv_basic(model, tmp_path):
     """TSV -> basic mode -> zstd CSV; rows must match the reference binary's
     segmentation formatted through the same output conventions."""
-    from dynamont_tpu.cli import resquiggle
+    from dynamont_jax.cli import resquiggle
 
     items = []
     for s in range(3):
@@ -100,7 +100,7 @@ def test_resquiggle_cli_tsv_basic(model, tmp_path):
 def test_resquiggle_cli_resume(model, tmp_path):
     """--resume skips already-segmented reads and appends a new zstd frame;
     the final CSV matches a single-shot run line-for-line."""
-    from dynamont_tpu.cli import resquiggle
+    from dynamont_jax.cli import resquiggle
 
     items = []
     for s in range(3):
@@ -135,7 +135,7 @@ def test_resquiggle_cli_resume_after_truncation(model, tmp_path):
     """A hard kill leaves a truncated zstd frame; --resume must repair the
     file (drop the possibly-partial trailing read) and still produce a
     decodable CSV identical to a single-shot run."""
-    from dynamont_tpu.cli import resquiggle
+    from dynamont_jax.cli import resquiggle
 
     items = []
     for s in range(3):
@@ -171,10 +171,10 @@ def test_trainer_tsv(model, tmp_path):
     tsv = tmp_path / "train.tsv"
     _write_tsv(tsv, items)
     outdir = tmp_path / "trained"
-    from dynamont_tpu.training.trainer import Trainer
-    from dynamont_tpu.io import readers
-    from dynamont_tpu.utils.kmer import int2kmer
-    from dynamont_tpu.utils.pore_model import write_kmer_models
+    from dynamont_jax.training.trainer import Trainer
+    from dynamont_jax.io import readers
+    from dynamont_jax.utils.kmer import int2kmer
+    from dynamont_jax.utils.pore_model import write_kmer_models
 
     # the trainer reads a TSV kmer model; build one from the packaged npz
     # in 5'->3' storage order (reverse processing-orientation kmers)
@@ -219,7 +219,7 @@ def test_trainer_tsv(model, tmp_path):
 
 def test_resquiggle_cli_tsv_ntc_mode(model, tmp_path):
     """TSV -> resquiggle (NTC) mode -> zstd CSV with polish column filled."""
-    from dynamont_tpu.cli import resquiggle
+    from dynamont_jax.cli import resquiggle
 
     items = []
     for s in range(2):
@@ -242,10 +242,10 @@ def test_resquiggle_cli_tsv_ntc_mode(model, tmp_path):
 def test_trainer_batched_equals_per_read(model, tmp_path):
     """The batched banded training path must produce the same parameter
     updates as the per-read path."""
-    from dynamont_tpu.io import readers
-    from dynamont_tpu.training.trainer import Trainer
-    from dynamont_tpu.utils.kmer import int2kmer
-    from dynamont_tpu.utils.pore_model import write_kmer_models
+    from dynamont_jax.io import readers
+    from dynamont_jax.training.trainer import Trainer
+    from dynamont_jax.utils.kmer import int2kmer
+    from dynamont_jax.utils.pore_model import write_kmer_models
 
     items = []
     for s in range(3):
@@ -264,7 +264,22 @@ def test_trainer_batched_equals_per_read(model, tmp_path):
     t1 = Trainer("basic", "rna002", str(tmp_path / "a"), str(model_tsv), batch_size=3)
     t1.process_batch(jobs, epoch=0)
     t2 = Trainer("basic", "rna002", str(tmp_path / "b"), str(model_tsv), batch_size=3)
-    t2._train_batch_basic = lambda jobs: (_ for _ in ()).throw(RuntimeError("force per-read"))
+
+    def per_read(jobs):
+        from dynamont_jax.models.nt_banded import run_nt_banded
+        from dynamont_jax.utils.pore_model import pore_model_from_dict
+
+        m = pore_model_from_dict(t2.kmer_models, t2.rna)
+        out = []
+        for job in jobs:
+            res = run_nt_banded(job.signal, job.read, m, "rna002",
+                                t2.transition_params, mode="train",
+                                validate=False)
+            out.append((res.trained_transitions, res.trained_emissions,
+                        res.Z))
+        return out
+
+    t2._train_batch_basic = per_read
     t2.process_batch(jobs, epoch=0)
     for p in t1.transition_params:
         assert t1.transition_params[p] == pytest.approx(

@@ -1,9 +1,9 @@
 import numpy as np
 import pytest
 
-from dynamont_tpu.models.registry import get_model_path, load_model_for_pore
-from dynamont_tpu.utils.kmer import kmer2int
-from dynamont_tpu.utils.pore_model import (
+from dynamont_jax.models.registry import get_model_path, load_model_for_pore
+from dynamont_jax.utils.kmer import kmer2int
+from dynamont_jax.utils.pore_model import (
     load_pore_model,
     pore_model_from_dict,
     read_kmer_models,
@@ -106,7 +106,7 @@ def test_9mer_to_5mer_cli(tmp_path):
     """CLI reduction round-trip (ref: models/9merTo5mer.py)."""
     import itertools
 
-    from dynamont_tpu.utils.pore_model import read_kmer_models, reduce_cli
+    from dynamont_jax.utils.pore_model import read_kmer_models, reduce_cli
 
     nine = tmp_path / "nine.model"
     with open(nine, "w") as f:

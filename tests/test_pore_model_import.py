@@ -1,4 +1,4 @@
-"""Golden tests for the pore-model import workflow (VERDICT r4 item 9).
+"""Golden tests for the pore-model import workflow.
 
 The packaged rna004_9mer and DNA r10.4.1 tables are git-LFS blobs absent
 from both this build and the reference mount (ref force-includes them at
@@ -17,10 +17,10 @@ import os
 
 import numpy as np
 
-from dynamont_tpu.models import registry
-from dynamont_tpu.utils.kmer import int2kmer, kmer2int
-from dynamont_tpu.utils.pore_model import load_pore_model
-from dynamont_tpu.utils.synthetic import make_read
+from dynamont_jax.models import registry
+from dynamont_jax.utils.kmer import int2kmer, kmer2int
+from dynamont_jax.utils.pore_model import load_pore_model
+from dynamont_jax.utils.synthetic import make_read
 
 
 def _import_script():
@@ -122,7 +122,7 @@ def test_import_dna_r10_registry_resolution_and_engine(tmp_path, monkeypatch):
         assert model.means[idx] == means[idx]
 
     # engine load: the resolved model drives a full NT segmentation
-    from dynamont_tpu.models.nt import run_nt
+    from dynamont_jax.models.nt import run_nt
 
     sig, read = make_read(model, n_bases=24, seed=3)
     res = run_nt(sig, read, model, "dna_r10_400bps")

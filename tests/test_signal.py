@@ -1,6 +1,6 @@
 import numpy as np
 
-from dynamont_tpu.utils.signal import hampel_filter, normalize_signal, prepare_read_sequence
+from dynamont_jax.utils.signal import hampel_filter, normalize_signal, prepare_read_sequence
 
 
 def _reference_hampel(signal, WINDOW=3, n_sigmas=3.0):

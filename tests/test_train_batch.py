@@ -7,12 +7,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dynamont_tpu.models.nt_banded import run_nt_banded
-from dynamont_tpu.models.registry import load_model_for_pore
-from dynamont_tpu.ops import nt_banded_batch as bb
-from dynamont_tpu.parallel import make_mesh, make_sharded_train_step, pool_params
-from dynamont_tpu.parallel.train_step import shard_batch_for_mesh
-from dynamont_tpu.utils.kmer import int2kmer, seq_to_kmer_ids
+from dynamont_jax.models.nt_banded import run_nt_banded
+from dynamont_jax.models.registry import load_model_for_pore
+from dynamont_jax.ops import nt_banded_batch as bb
+from dynamont_jax.parallel import make_mesh, make_sharded_train_step, pool_params
+from dynamont_jax.parallel.train_step import shard_batch_for_mesh
+from dynamont_jax.utils.kmer import int2kmer, seq_to_kmer_ids
 
 from tests.synthetic import make_read
 

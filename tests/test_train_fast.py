@@ -1,4 +1,5 @@
-"""Fast (Pallas/MXU) banded training path vs the exact scan oracle."""
+"""The kernels' banded training step (ops/nt_banded_train, Triton kernels
+in interpret mode here) vs the exact scan oracle."""
 
 import math
 
@@ -6,10 +7,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dynamont_tpu.models.registry import load_model_for_pore
-from dynamont_tpu.ops import nt_banded_batch as bb
-from dynamont_tpu.ops.nt_banded_train import banded_batch_train_fast
-from dynamont_tpu.utils.kmer import seq_to_kmer_ids
+from dynamont_jax.models.registry import load_model_for_pore
+from dynamont_jax.ops import nt_banded_batch as bb
+from dynamont_jax.ops.nt_banded_train import (banded_batch_train_fast,
+                                              kmer_moments)
+from dynamont_jax.utils.kmer import seq_to_kmer_ids
 
 from tests.synthetic import make_read
 
@@ -42,10 +44,9 @@ def test_fast_train_matches_scan(model):
     ref = bb.banded_batch_train(*args)
     got = banded_batch_train_fast(*args, interpret=True)
 
-    # tolerances re-measured after the round-4 online exp-space
-    # accumulator folds (ops/nt_banded_train): observed max drift vs the
-    # scan oracle at these shapes is m1/e2 <= 2e-5 rel, means <= 1e-5,
-    # stdevs <= 8e-5 — the bounds below carry ~5x headroom
+    # fp32 reassociation bounds vs the scan oracle at these shapes (the
+    # kernels sum the m1/e2 numerators as exp(term - Zf); the scan path
+    # takes one logsumexp)
     np.testing.assert_allclose(np.asarray(got.Zf), np.asarray(ref.Zf),
                                rtol=1e-5)
     np.testing.assert_allclose(np.asarray(got.Zb), np.asarray(ref.Zb),
@@ -87,13 +88,31 @@ def test_fast_train_padded_reads_are_benign(model):
     assert not np.asarray(got.kmer_mask)[2].any()
 
 
+def test_kmer_moments_single_sample_kmer_counts():
+    """A k-mer whose one position carries the weight of a single sample
+    has variance 0 and still counts (fp64 keeps such an estimate with a
+    stdev of ~1e-5); a k-mer whose positions carry no weight does not."""
+    y = 1.5
+    norm = jnp.array([[0.0, 1.0, 0.0]], jnp.float32)
+    wy = jnp.array([[0.0, y, 0.0]], jnp.float32)
+    wy2 = jnp.array([[0.0, y * y, 0.0]], jnp.float32)
+    s0 = jnp.zeros((1,), jnp.float32)
+    kids = jnp.array([[5, 7]], jnp.int32)
+    means, stdevs, mask = kmer_moments(norm, wy, wy2, s0, kids,
+                                       jnp.array([3]), 16)
+    assert float(means[0, 5]) == y and float(stdevs[0, 5]) == 0.0
+    assert bool(mask[0, 5])
+    assert not bool(mask[0, 7]) and int(mask.sum()) == 1
+
+
 def test_trainer_fp32_precision(model, tmp_path):
-    """Trainer(precision='fp32') routes through the fast path and produces
-    parameters close to the fp64 run on the same batch."""
-    from dynamont_tpu.io import readers
-    from dynamont_tpu.training.trainer import Trainer
-    from dynamont_tpu.utils.kmer import int2kmer
-    from dynamont_tpu.utils.pore_model import write_kmer_models
+    """Trainer(precision='fp32') — the kernels on a GPU, the fp32 scans on
+    the CPU — produces parameters close to the fp64 run on the same
+    batch."""
+    from dynamont_jax.io import readers
+    from dynamont_jax.training.trainer import Trainer
+    from dynamont_jax.utils.kmer import int2kmer
+    from dynamont_jax.utils.pore_model import write_kmer_models
 
     items = []
     for s in range(4):
@@ -124,3 +143,42 @@ def test_trainer_fp32_precision(model, tmp_path):
                                                  rel=1e-3)
     assert params["fp32"]["e2"] == pytest.approx(params["fp64"]["e2"],
                                                  rel=1e-3)
+
+
+@pytest.mark.parametrize("dist", [None, (0, 1)], ids=["local", "distributed"])
+def test_trainer_batched_failure_raises(model, tmp_path, dist):
+    """A failing batched step ends the run on the local and the
+    multi-process path alike: nothing retrains the reads on a slower
+    path."""
+    from dynamont_jax.io import readers
+    from dynamont_jax.training.trainer import Trainer
+    from dynamont_jax.utils.kmer import int2kmer
+    from dynamont_jax.utils.pore_model import write_kmer_models
+
+    sig, read_proc = make_read(model, n_bases=30, seed=80)
+    tsv = tmp_path / "train.tsv"
+    tsv.write_text(f"r0\tr0\t{','.join(repr(float(x)) for x in sig)}\t"
+                   f"{read_proc[9:][::-1]}\n")
+    model_tsv = tmp_path / "init.model"
+    write_kmer_models(model_tsv, {
+        int2kmer(k, model.alphabet_size, model.kmer_size, model.rna):
+            (float(model.means[k]), float(model.stdevs[k]))
+        for k in range(model.num_kmers)})
+    trainer = Trainer("basic", "rna002", str(tmp_path / "out"),
+                      str(model_tsv), batch_size=1)
+    trainer.dist = dist
+
+    real, calls = trainer._train_batch_basic, []
+
+    def fail_first(jobs):
+        # only the training step fails; the post-update Z pass would run
+        calls.append(len(jobs))
+        if len(calls) == 1:
+            raise RuntimeError("batched step failed")
+        return real(jobs)
+
+    trainer._train_batch_basic = fail_first
+    jobs = list(readers.generate_tsv_jobs(str(tsv), rna=True))
+    with pytest.raises(RuntimeError, match="batched step failed"):
+        trainer.process_batch(jobs, epoch=0)
+    trainer.close()
